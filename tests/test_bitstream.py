@@ -2,8 +2,8 @@
 
 import random
 
-from thevc_tpu.bitstream import InputBitstream, OutputBitstream
-from thevc_tpu import nal
+from thevc.bitstream import InputBitstream, OutputBitstream
+from thevc import nal
 
 
 def test_bit_roundtrip_random():

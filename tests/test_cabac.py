@@ -4,10 +4,10 @@ import random
 
 import numpy as np
 
-from thevc_tpu.bitstream import InputBitstream, OutputBitstream
-from thevc_tpu.cabac.contexts import NUM_CTX, make_context_states
-from thevc_tpu.cabac.engine import BinDecoder, BinEncoder
-from thevc_tpu.params import B_SLICE, I_SLICE, P_SLICE
+from thevc.bitstream import InputBitstream, OutputBitstream
+from thevc.cabac.contexts import NUM_CTX, make_context_states
+from thevc.cabac.engine import BinDecoder, BinEncoder
+from thevc.params import B_SLICE, I_SLICE, P_SLICE
 
 
 def _roundtrip(seed, n_syms, qp=32, slice_type=I_SLICE):
@@ -92,7 +92,7 @@ def test_cabac_all_mps_run():
 
 
 def test_init_state_known_values():
-    from thevc_tpu.cabac.tables import init_state
+    from thevc.cabac.tables import init_state
     # init value 154 (CNU) at any QP gives state 0/1 boundary region;
     # spot-check the formula against hand-computed values.
     # initValue=154: slope=(9)*5-45=0, offset=((154&15)<<3)-16=64 -> state 64 -> mps=1, state=(0<<1)+1=1

@@ -7,8 +7,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from thevc_tpu.decoder.top import Decoder
-from thevc_tpu.io.yuv import YuvReader
+from thevc.utils.cfg import CFG_DIR
+from thevc.decoder.top import Decoder
+from thevc.io.yuv import YuvReader
 
 from conftest import ORACLE_BIN, TESTDATA
 
@@ -17,7 +18,7 @@ def _encode(clip, out_bin, w=416, h=240, frames=1, extra=()):
     if not out_bin.exists():
         subprocess.run(
             [str(ORACLE_BIN / "TAppEncoder"),
-             "-c", "/root/reference/cfg/encoder_intra_main.cfg",
+             "-c", f"{CFG_DIR}/encoder_intra_main.cfg",
              "-i", str(clip), "-wdt", str(w), "-hgt", str(h),
              "-f", str(frames), "-fr", "30", "-b", str(out_bin),
              "-o", "/dev/null", "--SEIpictureDigest=1", *extra],
@@ -140,7 +141,7 @@ def test_decode_partitioned_streams(oracle, test_clip, name):
         cfg = "encoder_intra_main.cfg" if intra else "encoder_lowdelay_P_main.cfg"
         subprocess.run(
             [str(ORACLE_BIN / "TAppEncoder"),
-             "-c", f"/root/reference/cfg/{cfg}",
+             "-c", f"{CFG_DIR}/{cfg}",
              "-i", str(test_clip), "-wdt", "416", "-hgt", "240",
              "-f", "2" if intra else "4", "-fr", "30", "-b", str(out),
              "-o", "/dev/null", "--SEIpictureDigest=1", *extra],
@@ -192,7 +193,7 @@ def test_decode_weighted_prediction(oracle, cfg, opt, name):
     if not out.exists():
         subprocess.run(
             [str(ORACLE_BIN / "TAppEncoder"),
-             "-c", f"/root/reference/cfg/{cfg}",
+             "-c", f"{CFG_DIR}/{cfg}",
              "-i", str(clip), "-wdt", "176", "-hgt", "144",
              "-f", "5", "-fr", "30", opt, "1", "-b", str(out),
              "-o", "/dev/null", "--SEIpictureDigest=1"],
@@ -203,7 +204,7 @@ def test_decode_weighted_prediction(oracle, cfg, opt, name):
 def _write_custom_matrices(path):
     """An HM ScalingListFile with non-default matrices (exercises the SPS
     scaling-list syntax: DPCM coding + DC values + checkDefaultScalingList)."""
-    from thevc_tpu.common import scaling as sc
+    from thevc.common import scaling as sc
     rng = np.random.RandomState(7)
     out = []
     for sid in range(4):

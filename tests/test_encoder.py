@@ -9,14 +9,15 @@ import subprocess
 
 import pytest
 
+from thevc.utils.cfg import CFG_DIR
 from tests.conftest import ORACLE_BIN, TESTDATA, REPO, ensure_clip
 
-from thevc_tpu.apps.encoder import main as encoder_main
+from thevc.apps.encoder import main as encoder_main
 
 
 def _oracle_encode(clip, out_bin, w, h, frames, extra, digest=1):
     cmd = [str(ORACLE_BIN / "TAppEncoder"),
-           "-c", "/root/reference/cfg/encoder_intra_main.cfg",
+           "-c", f"{CFG_DIR}/encoder_intra_main.cfg",
            "-i", str(clip), "-wdt", str(w), "-hgt", str(h),
            "-f", str(frames), "-fr", "30",
            "-b", str(out_bin), "-o", "/dev/null",
@@ -44,7 +45,7 @@ def test_intra_encode_byte_exact(oracle, small_clip, tmp_path, qp):
         _oracle_encode(small_clip, hm_bin, 96, 80, 2,
                        ["-q", str(qp), "--SAO=0"])
     my_bin = tmp_path / "my.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
                   "-i", str(small_clip), "-b", str(my_bin),
                   "-wdt", "96", "-hgt", "80", "-f", "2", "-fr", "30",
                   "-q", str(qp), "--SAO=0", "--SEIpictureDigest=1"])
@@ -58,7 +59,7 @@ def test_intra_encode_no_ts_byte_exact(oracle, small_clip, tmp_path):
         _oracle_encode(small_clip, hm_bin, 96, 80, 2,
                        ["-q", "32", "--SAO=0", "--TS=0", "--TSFast=0"])
     my_bin = tmp_path / "my.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
                   "-i", str(small_clip), "-b", str(my_bin),
                   "-wdt", "96", "-hgt", "80", "-f", "2", "-fr", "30",
                   "-q", "32", "--SAO=0", "--TS=0", "--TSFast=0",
@@ -69,7 +70,7 @@ def test_intra_encode_no_ts_byte_exact(oracle, small_clip, tmp_path):
 def test_encode_decode_roundtrip(oracle, small_clip, tmp_path):
     """Our stream decodes in the HM oracle decoder with matching digests."""
     my_bin = tmp_path / "rt.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
                   "-i", str(small_clip), "-b", str(my_bin),
                   "-wdt", "96", "-hgt", "80", "-f", "2", "-fr", "30",
                   "-q", "37", "--SAO=0", "--SEIpictureDigest=1"])
@@ -87,7 +88,7 @@ def test_intra_encode_10bit_byte_exact(oracle, small_clip, tmp_path):
         _oracle_encode(small_clip, hm_bin, 96, 80, 1,
                        ["-q", "27", "--SAO=0", "--InternalBitDepth=10"])
     my_bin = tmp_path / "my.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
                   "-i", str(small_clip), "-b", str(my_bin),
                   "-wdt", "96", "-hgt", "80", "-f", "1", "-fr", "30",
                   "-q", "27", "--SAO=0", "--InternalBitDepth=10",
@@ -105,7 +106,7 @@ def test_intra_encode_crc_checksum_digest_byte_exact(oracle, small_clip,
         _oracle_encode(small_clip, hm_bin, 96, 80, 1, ["-q", "32"],
                        digest=dig)
     my_bin = tmp_path / "my.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
                   "-i", str(small_clip), "-b", str(my_bin),
                   "-wdt", "96", "-hgt", "80", "-f", "1", "-fr", "30",
                   "-q", "32", f"--SEIpictureDigest={dig}"])
@@ -119,7 +120,7 @@ def test_intra_encode_sao_byte_exact(oracle, small_clip, tmp_path, qp):
     if not hm_bin.exists():
         _oracle_encode(small_clip, hm_bin, 96, 80, 2, ["-q", str(qp)])
     my_bin = tmp_path / "my.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
                   "-i", str(small_clip), "-b", str(my_bin),
                   "-wdt", "96", "-hgt", "80", "-f", "2", "-fr", "30",
                   "-q", str(qp), "--SEIpictureDigest=1"])
@@ -133,13 +134,13 @@ def test_encoder_lowdelay_p_byte_exact(oracle, test_clip_small, tmp_path):
     if not ref_bin.exists():
         subprocess.run(
             [str(ORACLE_BIN / "TAppEncoder"),
-             "-c", "/root/reference/cfg/encoder_lowdelay_P_main.cfg",
+             "-c", f"{CFG_DIR}/encoder_lowdelay_P_main.cfg",
              "-i", str(test_clip_small), "-wdt", "176", "-hgt", "144",
              "-f", "5", "-fr", "30", "-b", str(ref_bin),
              "-o", "/dev/null", "--SEIpictureDigest=1"],
             check=True, capture_output=True)
     out = tmp_path / "ldp5.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_lowdelay_P_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_lowdelay_P_main.cfg",
               "-i", str(test_clip_small), "-wdt", "176", "-hgt", "144",
               "-f", "5", "-fr", "30", "-b", str(out),
               "-o", "/dev/null", "--SEIpictureDigest=1"])
@@ -161,13 +162,13 @@ def test_encoder_lowdelay_b_byte_exact(oracle, small_clip, tmp_path):
     if not ref_bin.exists():
         subprocess.run(
             [str(ORACLE_BIN / "TAppEncoder"),
-             "-c", "/root/reference/cfg/encoder_lowdelay_main.cfg",
+             "-c", f"{CFG_DIR}/encoder_lowdelay_main.cfg",
              "-i", str(clip), "-wdt", "96", "-hgt", "80",
              "-f", "5", "-fr", "30", "-b", str(ref_bin),
              "-o", "/dev/null", "--SEIpictureDigest=1"],
             check=True, capture_output=True)
     out = tmp_path / "ldb5.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_lowdelay_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_lowdelay_main.cfg",
                   "-i", str(clip), "-wdt", "96", "-hgt", "80",
                   "-f", "5", "-fr", "30", "-b", str(out),
                   "-o", "/dev/null", "--SEIpictureDigest=1"])
@@ -206,7 +207,7 @@ def test_encode_partitioned_byte_exact(oracle, small_clip, tmp_path,
     if not hm_bin.exists():
         _oracle_encode(small_clip, hm_bin, 96, 80, 2, extra)
     my_bin = tmp_path / "my.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
                   "-i", str(small_clip), "-b", str(my_bin),
                   "-wdt", "96", "-hgt", "80", "-f", "2", "-fr", "30",
                   "--SEIpictureDigest=1", *extra])
@@ -240,13 +241,13 @@ def test_encoder_tool_combinations_byte_exact(oracle, tmp_path, name, cfg,
     if not ref_bin.exists():
         subprocess.run(
             [str(ORACLE_BIN / "TAppEncoder"),
-             "-c", f"/root/reference/cfg/{cfg}",
+             "-c", f"{CFG_DIR}/{cfg}",
              "-i", str(clip), "-wdt", "96", "-hgt", "80",
              "-f", str(frames), "-fr", "30", "-b", str(ref_bin),
              "-o", "/dev/null", "--SEIpictureDigest=1", *extra],
             check=True, capture_output=True)
     out = tmp_path / "combo.bin"
-    encoder_main(["-c", f"/root/reference/cfg/{cfg}",
+    encoder_main(["-c", f"{CFG_DIR}/{cfg}",
                   "-i", str(clip), "-wdt", "96", "-hgt", "80",
                   "-f", str(frames), "-fr", "30", "-b", str(out),
                   "-o", "/dev/null", "--SEIpictureDigest=1", *extra])
@@ -262,7 +263,7 @@ def test_encoder_lambda_modifier_byte_exact(oracle, tmp_path, extra, name):
     """LambdaModifier0-7 / RecalculateQPAccordingToLambda
     (TAppEncCfg.cpp:219-226/:327, TEncSlice.cpp:313-316/:352-357)."""
     clip = ensure_clip("clip_96x80_9f.yuv", 96, 80, 9)
-    cfg = ("/root/reference/cfg/encoder_lowdelay_main.cfg" if name != "lm1"
+    cfg = (f"{CFG_DIR}/encoder_lowdelay_main.cfg" if name != "lm1"
            else str(REPO / "tests" / "cfg" / "encoder_lowdelay_tlayers.cfg"))
     ref_bin = TESTDATA / f"lm_{name}_ref.bin"
     if not ref_bin.exists():
@@ -298,7 +299,7 @@ def test_encoder_cropping_modes_byte_exact(oracle, tmp_path, mode, w, h,
             check=True)
     args = ["-wdt", str(w), "-hgt", str(h), "-f", "2", "-fr", "30",
             "--SEIpictureDigest=1", f"--CroppingMode={mode}", *extra]
-    cfg = "/root/reference/cfg/encoder_intra_main.cfg"
+    cfg = f"{CFG_DIR}/encoder_intra_main.cfg"
     ref_bin = tmp_path / "crop_ref.bin"
     ref_rec = tmp_path / "crop_ref.yuv"
     subprocess.run(
@@ -312,7 +313,7 @@ def test_encoder_cropping_modes_byte_exact(oracle, tmp_path, mode, w, h,
     assert out.read_bytes() == ref_bin.read_bytes()
     assert rec.read_bytes() == ref_rec.read_bytes()
     # decoder side: our decoder applies the SPS cropping window on output
-    from thevc_tpu.apps.decoder import main as decoder_main
+    from thevc.apps.decoder import main as decoder_main
     dec_ref = tmp_path / "dec_ref.yuv"
     dec_my = tmp_path / "dec_my.yuv"
     subprocess.run([str(ORACLE_BIN / "TAppDecoder"), "-b", str(out),
@@ -336,18 +337,18 @@ def test_encoder_midstream_cra_tfd_byte_exact(oracle, small_clip, tmp_path):
     if not ref_bin.exists():
         subprocess.run(
             [str(ORACLE_BIN / "TAppEncoder"),
-             "-c", "/root/reference/cfg/encoder_randomaccess_main.cfg",
+             "-c", f"{CFG_DIR}/encoder_randomaccess_main.cfg",
              "-i", str(clip), "-wdt", "96", "-hgt", "80",
              "-f", "9", "-fr", "30", "--IntraPeriod=8", "-b", str(ref_bin),
              "-o", "/dev/null", "--SEIpictureDigest=1"],
             check=True, capture_output=True)
     out = tmp_path / "tfd9.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_randomaccess_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_randomaccess_main.cfg",
                   "-i", str(clip), "-wdt", "96", "-hgt", "80",
                   "-f", "9", "-fr", "30", "--IntraPeriod=8", "-b", str(out),
                   "-o", "/dev/null", "--SEIpictureDigest=1"])
     assert out.read_bytes() == ref_bin.read_bytes()
-    from thevc_tpu.nal import iter_annexb_nals
+    from thevc.nal import iter_annexb_nals
     types = [n.nal_type for n in iter_annexb_nals(out.read_bytes())
              if n.nal_type < 25]
     assert types == [8, 4] + [2] * 7  # IDR, CRA, 7x TFD
@@ -369,13 +370,13 @@ def test_encoder_two_intra_periods_byte_exact(oracle, tmp_path):
     if not ref_bin.exists():
         subprocess.run(
             [str(ORACLE_BIN / "TAppEncoder"),
-             "-c", "/root/reference/cfg/encoder_randomaccess_main.cfg",
+             "-c", f"{CFG_DIR}/encoder_randomaccess_main.cfg",
              "-i", str(clip), "-wdt", "96", "-hgt", "80",
              "-f", "24", "-fr", "30", "--IntraPeriod=16", "-b", str(ref_bin),
              "-o", "/dev/null", "--SEIpictureDigest=1"],
             check=True, capture_output=True)
     out = tmp_path / "tfd24.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_randomaccess_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_randomaccess_main.cfg",
                   "-i", str(clip), "-wdt", "96", "-hgt", "80",
                   "-f", "24", "-fr", "30", "--IntraPeriod=16",
                   "-b", str(out), "-o", "/dev/null", "--SEIpictureDigest=1"])
@@ -401,7 +402,7 @@ def test_encoder_temporal_layers_tla_byte_exact(oracle, tmp_path):
                   "-f", "5", "-fr", "30", "-b", str(out),
                   "-o", "/dev/null", "--SEIpictureDigest=1"])
     assert out.read_bytes() == ref_bin.read_bytes()
-    from thevc_tpu.nal import iter_annexb_nals
+    from thevc.nal import iter_annexb_nals
     types = [(n.nal_type, n.temporal_id)
              for n in iter_annexb_nals(out.read_bytes()) if n.nal_type < 25]
     assert types == [(8, 0), (3, 1), (1, 0), (3, 1), (1, 0)]
@@ -420,13 +421,13 @@ def test_encoder_randomaccess_byte_exact(oracle, small_clip, tmp_path):
     if not ref_bin.exists():
         subprocess.run(
             [str(ORACLE_BIN / "TAppEncoder"),
-             "-c", "/root/reference/cfg/encoder_randomaccess_main.cfg",
+             "-c", f"{CFG_DIR}/encoder_randomaccess_main.cfg",
              "-i", str(clip), "-wdt", "96", "-hgt", "80",
              "-f", "9", "-fr", "30", "-b", str(ref_bin),
              "-o", "/dev/null", "--SEIpictureDigest=1"],
             check=True, capture_output=True)
     out = tmp_path / "ra9.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_randomaccess_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_randomaccess_main.cfg",
                   "-i", str(clip), "-wdt", "96", "-hgt", "80",
                   "-f", "9", "-fr", "30", "-b", str(out),
                   "-o", "/dev/null", "--SEIpictureDigest=1"])
@@ -447,13 +448,13 @@ def test_encoder_scaling_list_byte_exact(oracle, small_clip, tmp_path,
     if not ref_bin.exists():
         subprocess.run(
             [str(ORACLE_BIN / "TAppEncoder"),
-             "-c", f"/root/reference/cfg/{cfg}",
+             "-c", f"{CFG_DIR}/{cfg}",
              "-i", str(small_clip), "-wdt", "96", "-hgt", "80",
              "-f", str(frames), "-fr", "30", "-b", str(ref_bin),
              "-o", "/dev/null", "--SEIpictureDigest=1", "--ScalingList=1"],
             check=True, capture_output=True)
     out = tmp_path / "sl1.bin"
-    encoder_main(["-c", f"/root/reference/cfg/{cfg}",
+    encoder_main(["-c", f"{CFG_DIR}/{cfg}",
                   "-i", str(small_clip), "-wdt", "96", "-hgt", "80",
                   "-f", str(frames), "-fr", "30", "-b", str(out),
                   "--SEIpictureDigest=1", "--ScalingList=1"])
@@ -471,13 +472,13 @@ def test_encoder_weighted_pred_byte_exact(oracle, tmp_path):
     if not ref_bin.exists():
         subprocess.run(
             [str(ORACLE_BIN / "TAppEncoder"),
-             "-c", "/root/reference/cfg/encoder_lowdelay_P_main.cfg",
+             "-c", f"{CFG_DIR}/encoder_lowdelay_P_main.cfg",
              "-i", str(clip), "-wdt", "176", "-hgt", "144",
              "-f", "3", "-fr", "30", "-wpP", "1", "-b", str(ref_bin),
              "-o", "/dev/null", "--SEIpictureDigest=1"],
             check=True, capture_output=True)
     out = tmp_path / "wp.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_lowdelay_P_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_lowdelay_P_main.cfg",
                   "-i", str(clip), "-wdt", "176", "-hgt", "144",
                   "-f", "3", "-fr", "30", "-wpP", "1", "-b", str(out),
                   "--SEIpictureDigest=1"])
@@ -502,14 +503,14 @@ def test_encoder_rate_control_byte_exact(oracle, tmp_path, cfg, kbps, name):
     if not ref_bin.exists():
         subprocess.run(
             [str(ORACLE_BIN / "TAppEncoder"),
-             "-c", f"/root/reference/cfg/{cfg}",
+             "-c", f"{CFG_DIR}/{cfg}",
              "-i", str(clip), "-wdt", "96", "-hgt", "80",
              "-f", "9", "-fr", "30", "-b", str(ref_bin),
              "-o", "/dev/null", "--SEIpictureDigest=1",
              "--RateControl=1", f"--TargetBitrate={kbps}"],
             check=True, capture_output=True)
     out = tmp_path / "rc.bin"
-    encoder_main(["-c", f"/root/reference/cfg/{cfg}",
+    encoder_main(["-c", f"{CFG_DIR}/{cfg}",
                   "-i", str(clip), "-wdt", "96", "-hgt", "80",
                   "-f", "9", "-fr", "30", "-b", str(out),
                   "-o", "/dev/null", "--SEIpictureDigest=1",
@@ -542,16 +543,16 @@ def test_intra_encode_pcm_byte_exact(oracle, noise_clip, tmp_path):
         _oracle_encode(noise_clip, hm_bin, 96, 80, 1,
                        ["-q", "0", "--PCMEnabledFlag=1"])
     my_bin = tmp_path / "my.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
                   "-i", str(noise_clip), "-b", str(my_bin),
                   "-wdt", "96", "-hgt", "80", "-f", "1", "-fr", "30",
                   "-q", "0", "--PCMEnabledFlag=1", "--SEIpictureDigest=1"])
     assert my_bin.read_bytes() == hm_bin.read_bytes()
 
     # the stream must actually contain PCM CUs, and self-decode digest-OK
-    import thevc_tpu.decoder.cu_parser as cp
-    import thevc_tpu.decoder.native_parse as npx
-    from thevc_tpu.decoder.top import Decoder
+    import thevc.decoder.cu_parser as cp
+    import thevc.decoder.native_parse as npx
+    from thevc.decoder.top import Decoder
     n_pcm = [0]
     orig_ipcm = cp.SliceDataParser._parse_ipcm
     orig_native = npx.parse_slice_native
@@ -587,13 +588,13 @@ def test_lossless_encode_byte_exact(oracle, test_clip_small, tmp_path,
     hm_bin = TESTDATA / f"enc_lossless_{name}.bin"
     if not hm_bin.exists():
         cmd = [str(ORACLE_BIN / "TAppEncoder"),
-               "-c", f"/root/reference/cfg/{cfg}",
+               "-c", f"{CFG_DIR}/{cfg}",
                "-i", str(test_clip_small), "-wdt", "176", "-hgt", "144",
                "-f", str(frames), "-fr", "30", "-b", str(hm_bin),
                "-o", "/dev/null", "--SEIpictureDigest=1", *opts]
         subprocess.run(cmd, check=True, capture_output=True)
     my_bin = tmp_path / "my.bin"
-    encoder_main(["-c", f"/root/reference/cfg/{cfg}",
+    encoder_main(["-c", f"{CFG_DIR}/{cfg}",
                   "-i", str(test_clip_small), "-b", str(my_bin),
                   "-wdt", "176", "-hgt", "144", "-f", str(frames),
                   "-fr", "30", "--SEIpictureDigest=1", *opts])
@@ -604,7 +605,7 @@ def test_encoder_auto_inter_rps_byte_exact(oracle, test_clip_small, tmp_path):
     """InterRPSPrediction=2 (AUTO_INTER_RPS, TEncTop.cpp:699-730): refIdc
     derived automatically from the previous RPS; byte-exact vs HM."""
     import re
-    cfg_in = open("/root/reference/cfg/encoder_lowdelay_P_main.cfg").read()
+    cfg_in = open(f"{CFG_DIR}/encoder_lowdelay_P_main.cfg").read()
     cfg_auto = re.sub(r"1      -1       5         [01 ]+", "2      -1",
                       cfg_in)
     cfg_path = tmp_path / "ldp_auto.cfg"
@@ -648,13 +649,13 @@ def test_encoder_adaptive_qp_byte_exact(oracle, test_clip_small, tmp_path,
     if not hm_bin.exists():
         subprocess.run(
             [str(ORACLE_BIN / "TAppEncoder"), "-c",
-             f"/root/reference/cfg/{cfg}",
+             f"{CFG_DIR}/{cfg}",
              "-i", str(test_clip_small), "-wdt", "176", "-hgt", "144",
              "-f", str(frames), "-fr", "30", "-b", str(hm_bin),
              "-o", "/dev/null", "--SEIpictureDigest=1", *extra],
             check=True, capture_output=True)
     my_bin = tmp_path / "my.bin"
-    encoder_main(["-c", f"/root/reference/cfg/{cfg}",
+    encoder_main(["-c", f"{CFG_DIR}/{cfg}",
                   "-i", str(test_clip_small), "-b", str(my_bin),
                   "-wdt", "176", "-hgt", "144", "-f", str(frames),
                   "-fr", "30", "--SEIpictureDigest=1", *extra])
@@ -675,13 +676,13 @@ def test_encoder_sao_quadtree_byte_exact(oracle, test_clip_small, tmp_path,
     if not hm_bin.exists():
         subprocess.run(
             [str(ORACLE_BIN / "TAppEncoder"), "-c",
-             f"/root/reference/cfg/{cfg}",
+             f"{CFG_DIR}/{cfg}",
              "-i", str(test_clip_small), "-wdt", "176", "-hgt", "144",
              "-f", str(frames), "-fr", "30", "-b", str(hm_bin),
              "-o", "/dev/null", "--SEIpictureDigest=1", *extra],
             check=True, capture_output=True)
     my_bin = tmp_path / "my.bin"
-    encoder_main(["-c", f"/root/reference/cfg/{cfg}",
+    encoder_main(["-c", f"{CFG_DIR}/{cfg}",
                   "-i", str(test_clip_small), "-b", str(my_bin),
                   "-wdt", "176", "-hgt", "144", "-f", str(frames),
                   "-fr", "30", "--SEIpictureDigest=1", *extra])
@@ -702,7 +703,7 @@ def test_encoder_10bit_tool_byte_exact(oracle, small_clip, tmp_path, extra,
         _oracle_encode(clip, hm_bin, 96, 80, 2,
                        ["--InternalBitDepth=10", *extra])
     my_bin = tmp_path / "my.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
                   "-i", str(clip), "-b", str(my_bin),
                   "-wdt", "96", "-hgt", "80", "-f", "2", "-fr", "30",
                   "--InternalBitDepth=10", "--SEIpictureDigest=1", *extra])
@@ -715,7 +716,7 @@ def test_encoder_checkpoint_resume_byte_exact(test_clip_small, tmp_path):
     checkpoint and resumed in a fresh process produces the identical
     bitstream and recon as the uninterrupted run."""
     clip = ensure_clip("clip_96x80_9f.yuv", 96, 80, 9)
-    cfg = "/root/reference/cfg/encoder_lowdelay_P_main.cfg"
+    cfg = f"{CFG_DIR}/encoder_lowdelay_P_main.cfg"
     base = ["-c", cfg, "-i", str(clip), "-wdt", "96", "-hgt", "80",
             "-fr", "30", "--SEIpictureDigest=1"]
 

@@ -20,14 +20,15 @@ import subprocess
 import numpy as np
 import pytest
 
+from thevc.utils.cfg import CFG_DIR
 from tests.conftest import ORACLE_BIN
 
-from thevc_tpu.apps.decoder import main as decoder_main
-from thevc_tpu.apps.encoder import main as encoder_main
+from thevc.apps.decoder import main as decoder_main
+from thevc.apps.encoder import main as encoder_main
 
 
 def _encode(clip, out, w, h, frames, qp, extra=()):
-    encoder_main(["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
                   "-i", str(clip), "-b", str(out),
                   "-wdt", str(w), "-hgt", str(h), "-f", str(frames),
                   "-fr", "30", "-q", str(qp), "--FastRD=1",
@@ -52,8 +53,8 @@ def test_predict_batch_parity(size, luma):
     """The batched single-mode predictor matches ops.intra.predict for
     every mode (incl. negative-angle side extension, DC/edge filters)."""
     import jax.numpy as jnp
-    from thevc_tpu.ops import intra as iops
-    from thevc_tpu.encoder.fast_apply import _predict_batch
+    from thevc.ops import intra as iops
+    from thevc.encoder.fast_apply import _predict_batch
 
     rng = np.random.RandomState(7)
     unit = 4 if luma else 2
@@ -134,7 +135,7 @@ def test_fast_rd_rate_control_conformant(oracle, test_clip, tmp_path,
     os.environ["THEVC_FASTRD_DEVAPPLY"] = "force"
     out = tmp_path / "rc.bin"
     target_kbps = 1000
-    encoder_main(["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
                   "-i", str(test_clip), "-b", str(out),
                   "-wdt", "416", "-hgt", "240", "-f", "4", "-fr", "30",
                   "--FastRD=1", "--RateControl=1",

@@ -17,14 +17,15 @@ import subprocess
 import numpy as np
 import pytest
 
+from thevc.utils.cfg import CFG_DIR
 from tests.conftest import TESTDATA, ORACLE_BIN
 
-from thevc_tpu.apps.encoder import main as encoder_main
-from thevc_tpu.apps.decoder import main as decoder_main
+from thevc.apps.encoder import main as encoder_main
+from thevc.apps.decoder import main as decoder_main
 
 
 def _encode(clip, out, w, h, frames, qp, fast, extra=()):
-    encoder_main(["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
                   "-i", str(clip), "-b", str(out),
                   "-wdt", str(w), "-hgt", str(h), "-f", str(frames),
                   "-fr", "30", "-q", str(qp), f"--FastRD={int(fast)}",
@@ -91,7 +92,7 @@ def test_fast_rd_ldp_conformant_and_roundtrips(oracle, tmp_path):
     from tests.conftest import ensure_clip
     ensure_clip("clip_96x80_9f.yuv", 96, 80, 9)
     my_bin = tmp_path / "fastp.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_lowdelay_P_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_lowdelay_P_main.cfg",
                   "-i", "testdata/clip_96x80_9f.yuv", "-b", str(my_bin),
                   "-wdt", "96", "-hgt", "80", "-f", "6", "-fr", "30",
                   "-q", "32", "--FastRD=1", "--SEIpictureDigest=1"])
@@ -137,7 +138,7 @@ def test_fast_rd_ra_conformant_and_roundtrips(oracle, tmp_path):
     from tests.conftest import ensure_clip
     ensure_clip("clip_96x80_9f.yuv", 96, 80, 9)
     my_bin = tmp_path / "fastb.bin"
-    encoder_main(["-c", "/root/reference/cfg/encoder_randomaccess_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_randomaccess_main.cfg",
                   "-i", "testdata/clip_96x80_9f.yuv", "-b", str(my_bin),
                   "-wdt", "96", "-hgt", "80", "-f", "9", "-fr", "30",
                   "-q", "32", "--FastRD=1", "--SEIpictureDigest=1"])
@@ -181,7 +182,7 @@ def test_fast_rd_default_off(oracle, small_clip, tmp_path):
     a = tmp_path / "a.bin"
     b = tmp_path / "b.bin"
     _encode(small_clip, a, 96, 80, 1, 32, fast=0)
-    encoder_main(["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+    encoder_main(["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
                   "-i", str(small_clip), "-b", str(b),
                   "-wdt", "96", "-hgt", "80", "-f", "1", "-fr", "30",
                   "-q", "32", "--SEIpictureDigest=1"])

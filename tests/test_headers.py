@@ -1,10 +1,10 @@
 """Header parse/write parity against the HM oracle's streams."""
 
-from thevc_tpu import headers, nal
-from thevc_tpu.bitstream import InputBitstream
-from thevc_tpu.digest import calc_md5
-from thevc_tpu.io.yuv import YuvReader
-from thevc_tpu.params import I_SLICE
+from thevc import headers, nal
+from thevc.bitstream import InputBitstream
+from thevc.digest import calc_md5
+from thevc.io.yuv import YuvReader
+from thevc.params import I_SLICE
 
 
 def _units(stream):

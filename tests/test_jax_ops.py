@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from thevc_tpu.ops import transforms as tnp
+from thevc.ops import transforms as tnp
 
 
 @pytest.fixture(scope="module")
 def jx():
-    from thevc_tpu.ops import jx as _jx
+    from thevc.ops import jx as _jx
     return _jx
 
 

@@ -13,13 +13,13 @@ import pytest
 
 from conftest import TESTDATA, oracle_encode_small
 
-from thevc_tpu import headers, nal
-from thevc_tpu.bitstream import InputBitstream
-from thevc_tpu.decoder.top import Decoder
-from thevc_tpu.decoder.refpic import (
+from thevc import headers, nal
+from thevc.bitstream import InputBitstream
+from thevc.decoder.top import Decoder
+from thevc.decoder.refpic import (
     Dpb, build_ref_lists, check_all_ref_pics_available)
-from thevc_tpu.encoder.top import arrange_longterm_pictures_in_rps
-from thevc_tpu.params import ReferencePictureSet, SliceHeader
+from thevc.encoder.top import arrange_longterm_pictures_in_rps
+from thevc.params import ReferencePictureSet, SliceHeader
 
 
 def _rebuild_stream(units):

@@ -13,8 +13,9 @@ import pytest
 
 from conftest import TESTDATA
 
-from thevc_tpu.apps.annexb_bytecount import AnnexBStats, scan_nal_units
-from thevc_tpu.apps.bitrate_targeting import (
+from thevc.utils.cfg import CFG_DIR
+from thevc.apps.annexb_bytecount import AnnexBStats, scan_nal_units
+from thevc.apps.bitrate_targeting import (
     extract_bitrates_for_temporal_layers, guess_lambda_modifier,
     guess_lambda_modifiers, parse_metalog)
 
@@ -64,7 +65,7 @@ def test_annexb_totals_match_file_size(golden_intra_stream):
 # ---------------------------------------------------------------------------
 
 def test_convert_bitdepth_roundtrip(tmp_path):
-    from thevc_tpu.apps.convert_bitdepth import main as conv_main
+    from thevc.apps.convert_bitdepth import main as conv_main
     rng = np.random.RandomState(3)
     w, h = 16, 8
     src = tmp_path / "in8.yuv"
@@ -90,7 +91,7 @@ def test_extract_bitrates_from_encoder_log(oracle, test_clip_small):
     """Parses real per-POC log lines (non-I lines, averaged per nQP)."""
     out = subprocess.run(
         [str(TESTDATA.parent / ".oracle" / "bin" / "TAppEncoder"),
-         "-c", "/root/reference/cfg/encoder_lowdelay_P_main.cfg",
+         "-c", f"{CFG_DIR}/encoder_lowdelay_P_main.cfg",
          "-i", str(test_clip_small), "-wdt", "176", "-hgt", "144",
          "-f", "5", "-fr", "30", "-b", "/dev/null", "-o", "/dev/null"],
         check=True, capture_output=True, text=True)
@@ -107,8 +108,8 @@ def test_bitrate_targeting_loop_end_to_end(oracle, tmp_path):
     (GuessLambdaModifiers.cpp:397, targetBitrates.sh)."""
     import contextlib
 
-    from thevc_tpu.apps.bitrate_targeting import guess_lambda_modifiers
-    from thevc_tpu.apps.encoder import main as encoder_main
+    from thevc.apps.bitrate_targeting import guess_lambda_modifiers
+    from thevc.apps.encoder import main as encoder_main
 
     clip = TESTDATA / "clip_176x144_9f.yuv"
     cfg = str(TESTDATA.parent / "tests" / "cfg"
@@ -185,10 +186,10 @@ def test_encoder_decoder_symbol_trace_roundtrip(tmp_path, monkeypatch):
     symbol trace and the decoder's parse trace of the same stream must be
     line-identical, so diffing them localizes the first divergent syntax
     element without an oracle."""
-    import thevc_tpu.decoder.cu_parser as cp
-    import thevc_tpu.encoder.sbac_writer as sw
-    from thevc_tpu.apps.encoder import main as encoder_main
-    from thevc_tpu.decoder.top import Decoder
+    import thevc.decoder.cu_parser as cp
+    import thevc.encoder.sbac_writer as sw
+    from thevc.apps.encoder import main as encoder_main
+    from thevc.decoder.top import Decoder
 
     from tests.conftest import ensure_clip
     ensure_clip("clip_96x80_9f.yuv", 96, 80, 9)
@@ -199,7 +200,7 @@ def test_encoder_decoder_symbol_trace_roundtrip(tmp_path, monkeypatch):
 
     sw.TRACE = open(enc_tr, "w")
     try:
-        encoder_main(["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+        encoder_main(["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
                       "-i", "testdata/clip_96x80_9f.yuv", "-b",
                       str(bin_path), "-wdt", "96", "-hgt", "80", "-f", "1",
                       "-fr", "30", "--SEIpictureDigest=1"])
@@ -228,14 +229,14 @@ def test_encoder_trace_on_native_path(tmp_path):
     entropy pass replays the native compressor's decisions through the
     Python writer — the stream must stay byte-identical to the pure
     native pass and the trace must diff clean against the decoder's."""
-    import thevc_tpu.decoder.cu_parser as cp
-    import thevc_tpu.encoder.sbac_writer as sw
-    from thevc_tpu.apps.encoder import main as encoder_main
-    from thevc_tpu.decoder.top import Decoder
+    import thevc.decoder.cu_parser as cp
+    import thevc.encoder.sbac_writer as sw
+    from thevc.apps.encoder import main as encoder_main
+    from thevc.decoder.top import Decoder
 
     from tests.conftest import ensure_clip
     ensure_clip("clip_96x80_9f.yuv", 96, 80, 9)
-    argv = ["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+    argv = ["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
             "-i", "testdata/clip_96x80_9f.yuv", "-wdt", "96", "-hgt", "80",
             "-f", "1", "-fr", "30", "--SEIpictureDigest=1"]
     plain = tmp_path / "plain.bin"
@@ -270,7 +271,7 @@ def test_encoder_trace_on_native_path(tmp_path):
 def test_unknown_option_warns_and_is_kept(capsys):
     """program_options_lite.cpp:264: unknown keys warn on stderr and are
     ignored (kept in extras here), not treated as errors."""
-    from thevc_tpu.utils.cfg import EncoderCfg
+    from thevc.utils.cfg import EncoderCfg
 
     cfg = EncoderCfg()
     cfg.apply("NoSuchOptionXyz", "7")
@@ -282,7 +283,7 @@ def test_unknown_option_warns_and_is_kept(capsys):
 def test_help_prints_option_table(capsys):
     """TAppEncCfg.cpp:168,344: argc==1 or --help prints doHelp's option
     table (program_options_lite.cpp:141) instead of crashing."""
-    from thevc_tpu.utils.cfg import parse_args
+    from thevc.utils.cfg import parse_args
 
     with pytest.raises(SystemExit) as e:
         parse_args(["--help"])
@@ -300,7 +301,7 @@ def test_hm_short_aliases_bind():
     """TAppEncCfg.cpp:234,238: the comma-declared short aliases
     (-cbqpofs, -crqpofs, -aqps, -tbr, -dqd, -dqr) bind to the same
     attributes as their long forms."""
-    from thevc_tpu.utils.cfg import parse_args
+    from thevc.utils.cfg import parse_args
 
     cfg = parse_args(["-cbqpofs", "2", "-crqpofs", "3", "-aqps", "1",
                       "-tbr", "100000", "-dqd", "1", "-dqr", "1"])
@@ -313,7 +314,7 @@ def test_hm_short_aliases_bind():
 def test_trailing_flag_without_value_errors_cleanly():
     """program_options_lite scanArgv: an option at end-of-argv with no
     value must report `expects an argument`, not IndexError."""
-    from thevc_tpu.utils.cfg import parse_args
+    from thevc.utils.cfg import parse_args
 
     with pytest.raises(SystemExit) as e:
         parse_args(["--QP"])

@@ -1,7 +1,7 @@
 #!/bin/bash
 # Build the HM reference encoder/decoder from /root/reference (read-only) into
 # /root/repo/.oracle/ (gitignored).  These binaries are the bit-exactness
-# oracle for our TPU-native framework: our encoder's streams must decode
+# oracle for this codec: our encoder's streams must decode
 # bit-exactly in the HM decoder and vice versa (SURVEY.md section 4).
 set -e
 REF=/root/reference/source

@@ -11,9 +11,9 @@ os.environ.setdefault("THEVC_DEVICE", "0")
 
 import numpy as np
 
-from thevc_tpu.utils.cfg import parse_args
-from thevc_tpu.encoder.top import Encoder
-from thevc_tpu.decoder.top import Decoder
+from thevc.utils.cfg import CFG_DIR, parse_args
+from thevc.encoder.top import Encoder
+from thevc.decoder.top import Decoder
 
 CLIP = sys.argv[1] if len(sys.argv) > 1 else "testdata/clip_416x240.yuv"
 W = int(sys.argv[2]) if len(sys.argv) > 2 else 416
@@ -23,7 +23,7 @@ QP = int(sys.argv[5]) if len(sys.argv) > 5 else 32
 
 
 def enc(fast):
-    argv = ["-c", "/root/reference/cfg/encoder_lowdelay_P_main.cfg",
+    argv = ["-c", f"{CFG_DIR}/encoder_lowdelay_P_main.cfg",
             "-i", CLIP, "-wdt", str(W), "-hgt", str(H),
             "-f", str(F), "-fr", "30", "-q", str(QP), "-b", "/dev/null",
             "-o", "/dev/null", "--SEIpictureDigest=1",
@@ -82,7 +82,7 @@ print(f"fast : {len(s_fast)} bytes  {dt_f:.1f}s  "
       f"overhead {100.0 * (len(s_fast) / len(s_exact) - 1):.1f}%")
 
 # per-frame bit split via NAL sizes
-from thevc_tpu.nal import iter_annexb_nals
+from thevc.nal import iter_annexb_nals
 for name, s in (("exact", s_exact), ("fast", s_fast)):
     sizes = [(n.nal_type, len(n.rbsp)) for n in iter_annexb_nals(s)]
     print(name, "NAL sizes:", sizes)

@@ -10,6 +10,7 @@ import sys
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+from thevc.utils.cfg import CFG_DIR  # noqa: E402
 
 clip = sys.argv[1] if len(sys.argv) > 1 else "testdata/clip_416x240.yuv"
 w = sys.argv[2] if len(sys.argv) > 2 else "416"
@@ -20,13 +21,13 @@ ORACLE = os.path.join(REPO, ".oracle", "bin", "TAppEncoder")
 
 
 def run_ours(qp, fast):
-    from thevc_tpu.apps.encoder import main as enc_main
+    from thevc.apps.encoder import main as enc_main
     import io
     import contextlib
     out = f"/tmp/frq_{qp}_{fast}.bin"
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        enc_main(["-c", "/root/reference/cfg/encoder_intra_main.cfg",
+        enc_main(["-c", f"{CFG_DIR}/encoder_intra_main.cfg",
                   "-i", clip, "-wdt", w, "-hgt", h, "-f", f, "-fr", "30",
                   "-q", str(qp), "-b", out, "-o", "/dev/null",
                   "--SEIpictureDigest=1", f"--FastRD={int(fast)}"])
@@ -36,7 +37,7 @@ def run_ours(qp, fast):
 def run_hm(qp):
     out = f"/tmp/frq_{qp}_hm.bin"
     r = subprocess.run(
-        [ORACLE, "-c", "/root/reference/cfg/encoder_intra_main.cfg",
+        [ORACLE, "-c", f"{CFG_DIR}/encoder_intra_main.cfg",
          "-i", clip, "-wdt", w, "-hgt", h, "-f", f, "-fr", "30",
          "-q", str(qp), "-b", out, "-o", "/dev/null",
          "--SEIpictureDigest=1"],

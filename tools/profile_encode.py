@@ -32,8 +32,9 @@ clip = os.path.join(REPO, "testdata", "bench_1080p_4f.yuv")
 if not os.path.exists(clip):
     clip = os.path.join(REPO, "testdata", "bench_1080p.yuv")
 
-from thevc_tpu.native import get_lib  # noqa: E402
-from thevc_tpu.apps.encoder import main as enc_main  # noqa: E402
+from thevc.native import get_lib  # noqa: E402
+from thevc.apps.encoder import main as enc_main  # noqa: E402
+from thevc.utils.cfg import CFG_DIR  # noqa: E402
 
 lib = get_lib()
 # drain counters
@@ -44,7 +45,7 @@ out = os.path.join("/tmp", "prof_enc.bin")
 t0 = time.time()
 c0 = time.process_time()     # excludes hypervisor steal, unlike rdtsc/wall
 enc_main([
-    "-c", "/root/reference/cfg/encoder_intra_main.cfg",
+    "-c", f"{CFG_DIR}/encoder_intra_main.cfg",
     "-i", clip, "-wdt", "1920", "-hgt", "1080",
     "-f", str(frames), "-fr", "30", "-b", out,
     "-o", "/dev/null", "--SEIpictureDigest=1",
